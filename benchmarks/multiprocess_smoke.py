@@ -1,19 +1,17 @@
 """REAL 2-process jax.distributed run of the multi-host training path.
 
-Round-4 VERDICT "Missing #2": `parallel/distributed.py` + the hybrid
-DCN mesh were code-complete but had only ever executed under mocks
-(tests/test_distributed.py monkeypatches process_count/index). This
-script executes the actual runtime path — the TPU-native equivalent of
-the reference's multi-node Accelerate launch
-(/root/reference/model/diffusion.py:456-586) — with two genuine OS
+tests/test_distributed.py checks `parallel/distributed.py` and the
+('dcn','dp') mesh under mocks. This script executes the actual runtime
+path — the JAX equivalent of the reference's multi-node Accelerate
+launch (reference model/diffusion.py:456-586) — with two genuine OS
 processes on the CPU backend (gloo collectives), localhost coordinator:
 
   * `parallel.distributed.ensure_initialized` joins the cluster from
     the FEA_TPU_COORDINATOR/NUM_PROCESSES/PROCESS_ID env (the exact
     resolution path a real deployment uses),
-  * `parallel.mesh.make_mesh()` auto-builds the hybrid ('dcn','dp')
-    mesh over 2 processes x 2 local devices via
-    mesh_utils.create_hybrid_device_mesh (the real multi-host branch),
+  * `parallel.mesh.make_mesh()` auto-builds the ('dcn','dp') mesh over
+    2 processes x 2 local devices, grouped by process (the real
+    multi-host branch),
   * the real Trainer runs `_fetch_batch` (per-process local batch
     slice -> jax.make_array_from_process_local_data assembly) and ONE
     dp-sharded train step whose gradient psum crosses the process
@@ -27,9 +25,7 @@ Usage:
   timeout 1800 python benchmarks/multiprocess_smoke.py          # launcher
   (workers are spawned internally with --worker N)
 
-What still needs real hardware: ICI/DCN placement of the collectives
-and TPU-pod metadata auto-detection — this smoke proves the runtime
-wiring, not interconnect performance.
+This smoke proves the runtime wiring, not interconnect performance.
 """
 
 import json
@@ -145,7 +141,7 @@ def worker(pid: int) -> None:
     mark("checkpoint saved")
     # align exits: save_checkpoint's barrier precedes the write, so the
     # non-main process would otherwise exit minutes before process 0
-    # finishes the orbax write on this timeshared host and jax's
+    # finishes the checkpoint write on a busy host and jax's
     # shutdown barrier would expire (observed: DEADLINE_EXCEEDED at
     # Shutdown::).
     _jdist.global_state.client.wait_at_barrier("mp_smoke_done", 1_200_000)

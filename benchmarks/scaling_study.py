@@ -1,4 +1,4 @@
-"""Unified multi-chip scaling evidence (round-3 VERDICT "do this" #4).
+"""Unified multi-device scaling evidence on a virtual CPU mesh.
 
 One methodology for every multi-chip number this repo quotes — the
 weak-scaling efficiency of parallel/scaling.py (shape-identical
@@ -16,12 +16,11 @@ applied to all three surfaces:
 On the virtual n-device CPU mesh all devices timeshare the host cores,
 so wall-clock ratios expose sharding overhead, not speedup; real-chip
 projection = n_devices x efficiency (the programs have no cross-device
-collectives in datagen and one gradient psum in train). Run in a quiet
-window — a resident trainer on this 1-core host pollutes the timings
-(pause it via /tmp/fea_tpu_bench_pause like bench.py does).
+collectives in datagen and one gradient psum in train). Run on an
+otherwise idle host: other processes pollute the timings.
 
 Usage:
-  timeout 3600 python benchmarks/scaling_study.py [--quick] [--out FILE]
+  python benchmarks/scaling_study.py [--quick] [--out FILE]
 """
 
 import json

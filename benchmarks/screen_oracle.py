@@ -1,5 +1,5 @@
 """Validate the host structural screen + device CG against a direct
-f64 oracle (round-3 VERDICT "do this" #2).
+f64 oracle.
 
 The reference's ONLY rejection is NaN after a real sfepy SuperLU solve
 (/root/reference/datagen/fea_analysis.py:455-461 — solve, check
@@ -34,7 +34,7 @@ Usage:
   python benchmarks/screen_oracle.py --n 32 --quick   # bench.py inline
 
 Runs on the CPU backend (forced) so it never competes with a production
-TPU job for the chip; the CG kernel math is backend-agnostic.
+job for the card; the CG kernel math is backend-agnostic.
 """
 
 import argparse

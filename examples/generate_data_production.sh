@@ -1,7 +1,7 @@
 #!/bin/sh
 # Production ground-truth datagen config — the reference's
 # generate_data_GT.sh (2500 plates x 4 conditions x 6 steps, 512px,
-# save_meshes), on the TPU-native pipeline.
+# save_meshes), on the accelerator pipeline.
 python -m fea_tpu generate \
     --num_plates 2500 \
     --conditions_per_plate 4 \

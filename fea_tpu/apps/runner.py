@@ -225,7 +225,7 @@ def predict_with_surrogate(
     t_start = time.perf_counter()
 
     from ..data.dataset import to_signed
-    from ..train.trainer import Trainer, TrainerConfig
+    from ..train.trainer import TrainerConfig
 
     # Build model inputs with the dataset normalization contract.
     model_size = 256
@@ -277,34 +277,10 @@ def predict_with_surrogate(
         "geometry": to_signed(geometry01)[None, ..., None],
     }
 
-    config = TrainerConfig(
-        dataset_folder=output_dir,
-        sample_dataset_folder=output_dir,
-        dataset_image_size=model_size,
-        skip_dataset_size_check=True,
-        results_folder=os.path.dirname(checkpoint) or ".",
-    )
-    # Trainer requires dataset dirs; app output works as a stub since we
-    # never iterate it here.
-    trainer = Trainer.__new__(Trainer)
-    trainer.config = config
     from ..models import create_models
-    from ..parallel.mesh import make_mesh
+    from ..train.checkpoint import load_flat, unflatten
 
-    trainer.mesh = make_mesh(1)
-    trainer.encoder, trainer.decoder, trainer.auxiliary = create_models(
-        input_dim=config.input_dim,
-        image_height=model_size,
-        image_width=model_size,
-        num_channels=config.num_channels,
-        num_auxiliary_condition_channels=config.num_auxiliary_condition_channels,
-        num_stages=config.num_stages,
-    )
-    import orbax.checkpoint as ocp
-    from pathlib import Path
-
-    with ocp.PyTreeCheckpointer() as ckptr:
-        restored = ckptr.restore(Path(checkpoint).absolute())
+    restored = unflatten(load_flat(checkpoint, ("params/", "ema_params/")))
     # EMA weights option: the reference notebooks load checkpoints into an
     # ema_pytorch.EMA wrapper (generateapplication.ipynb cell 16)
     params = restored["params"]
@@ -315,16 +291,27 @@ def predict_with_surrogate(
             "(train with --use_ema_model)"
         )
         params = ema
+    config = TrainerConfig()
+    # the model width is the checkpoint's: its initial conv's output width
+    input_dim = params["encoder"]["initial_conv"]["kernel"].shape[-1]
+    encoder, decoder, _auxiliary = create_models(
+        input_dim=input_dim,
+        image_height=model_size,
+        image_width=model_size,
+        num_channels=config.num_channels,
+        num_auxiliary_condition_channels=config.num_auxiliary_condition_channels,
+        num_stages=config.num_stages,
+    )
 
     t_weights = time.perf_counter()
     conditions = jnp.concatenate(
         [jnp.asarray(batch["forces"]), jnp.asarray(batch["constraints"])],
         axis=-1,
     )
-    x, hidden, residual = trainer.encoder.apply(
+    x, hidden, residual = encoder.apply(
         {"params": params["encoder"]}, jnp.asarray(batch["materials"]), conditions
     )
-    image = trainer.decoder.apply(
+    image = decoder.apply(
         {"params": params["decoder"]}, x, list(hidden), residual
     )
     geometry = jnp.asarray(batch["geometry"])
@@ -374,7 +361,7 @@ def predict_with_surrogate(
         "pred_rmse": rmse,
         # end-to-end serve timing: rendering the model inputs from the
         # mesh, checkpoint restore, forward (incl. one-time jit compile
-        # + the tunneled fetch), PNG decode + scoring + VTK writeback
+        # + the fetch), PNG decode + scoring + VTK writeback
         "predict_wall_s": {
             "render_inputs_and_restore": round(t_weights - t_start, 2),
             "forward_incl_compile_and_fetch": round(

@@ -9,12 +9,6 @@ import argparse
 import os
 
 
-def _enable_compilation_cache():
-    from .utils.device import enable_compilation_cache
-
-    enable_compilation_cache()
-
-
 def _add_generate(sub):
     p = sub.add_parser("generate", help="Generate the FEA dataset.")
     p.add_argument("--num_plates", type=int, default=1)
@@ -30,7 +24,7 @@ def _add_generate(sub):
     p.add_argument("--data_dir", type=str, default="data")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--batched", action="store_true",
-                   help="vmapped multi-plate TPU solve path")
+                   help="vmapped multi-plate device solve path")
     p.add_argument("--batch_size", type=int, default=4)
     p.add_argument("--num_devices", type=int, default=None,
                    help="Shard the batched plate axis over this many "
@@ -84,8 +78,7 @@ def _cmd_generate(args):
             wandb_inject_function=wandb_fn,
         )
         # one-line solver telemetry so production logs record the
-        # failure/rejection rates (round-3 VERDICT weak #1: the bench's
-        # 74-solve sample is too small to characterize them)
+        # failure/rejection rates
         print(
             "solver stats: "
             + _json.dumps({
@@ -97,11 +90,11 @@ def _cmd_generate(args):
                 )
             })
         )
-        return
+        return stats
 
     from .datagen import generate_data
 
-    generate_data(
+    return generate_data(
         data_dir=args.data_dir,
         image_size=args.image_size,
         num_plates=args.num_plates,
@@ -160,7 +153,7 @@ def _add_train(sub):
     p.add_argument("--use_ema_model", action="store_true")
     p.add_argument("--compute_dtype", type=str, default=None,
                    choices=["bfloat16", "float32"],
-                   help="bfloat16 = mixed precision: bf16 MXU compute, "
+                   help="bfloat16 = mixed precision: bf16 compute, "
                         "f32 master weights (no loss scaling needed)")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize the forward pass during backward "
@@ -266,6 +259,7 @@ def _cmd_train(args):
                 wandb.log_artifact(artifact)
 
     trainer.train(wandb_inject_function=wandb_fn)
+    return trainer
 
 
 def _add_store(sub):
@@ -400,7 +394,7 @@ def _add_accuracy(sub):
     p.add_argument("--steps_per_condition", type=int, default=6)
     p.add_argument("--per_step", action="store_true")
     p.add_argument("--progress", action="store_true",
-                   help="tqdm over samples (300+ slow VTK/PNG reads at "
+                   help="progress over samples (300+ slow VTK/PNG reads at "
                         "production eval sizes)")
     return p
 
@@ -451,17 +445,22 @@ def _cmd_app(args):
         use_ema=args.use_ema,
     )
     print(out)
+    return out
 
 
 def main(argv=None):
+    """Run one command; returns what the command returns (datagen stats,
+    the Trainer, the app report) for in-process callers."""
     # Join the multi-controller cluster (no-op single-process) BEFORE
     # anything touches the backend — see parallel/distributed.py.
     from .parallel.distributed import ensure_initialized
 
     ensure_initialized()
-    _enable_compilation_cache()
+    from .utils.device import enable_compilation_cache
+
+    enable_compilation_cache()
     parser = argparse.ArgumentParser(
-        prog="fea_tpu", description="TPU-native FEA + surrogate framework."
+        prog="fea_tpu", description="FEA + surrogate framework on JAX."
     )
     sub = parser.add_subparsers(dest="command", required=True)
     _add_generate(sub)
@@ -472,7 +471,7 @@ def main(argv=None):
     _add_accuracy(sub)
     _add_app(sub)
     args = parser.parse_args(argv)
-    {
+    return {
         "generate": _cmd_generate,
         "train": _cmd_train,
         "store": _cmd_store,

@@ -1,6 +1,6 @@
 """PNG-backed training dataset with the reference's normalization contract.
 
-Re-implements FEADataset (model/diffusion.py:41-380) in NumPy/PIL, NHWC:
+Re-implements FEADataset (model/diffusion.py:41-380) in NumPy, NHWC:
   * index -> (plate, condition, step) with 1-based plate/condition dirs;
   * transform: resize(image_size, bilinear) -> grayscale -> /255 -> invert;
   * geometry & constraints: binarize (threshold 0.5) then map to [-1, 1];
@@ -21,14 +21,16 @@ from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
-from PIL import Image
+
+from ..utils import png
 
 
 def _load_gray(path: Path, image_size: int) -> np.ndarray:
     """resize -> grayscale -> [0,1] -> invert, matching the reference's
     torchvision Compose (diffusion.py:118-128). Returns (H, W) float32."""
-    img = Image.open(path).resize((image_size, image_size), Image.BILINEAR)
-    arr = np.asarray(img.convert("L"), dtype=np.float32) / 255.0
+    img = png.drop_alpha(png.read_png(path))
+    img = png.resize(img, (image_size, image_size), "bilinear")
+    arr = png.to_gray(img).astype(np.float32) / 255.0
     return 1.0 - arr
 
 

@@ -1,6 +1,6 @@
 """Decoded-on-disk condition store: production-scale training feed.
 
-The PNG-folder dataset (`FEADataset`) pays ~8 PIL decode+resize calls per
+The PNG-folder dataset (`FEADataset`) pays ~8 PNG decode+resize calls per
 sample; at production scale (>=50k samples) the in-RAM cache cannot hold
 the decoded set (trainer auto-threshold), so every epoch re-decodes —
 ~1.7 s/step on this 1-core host vs ~0.5 s device-bound (reference
@@ -17,7 +17,7 @@ This module exploits two structural facts of the data contract
    differ. So the store is keyed by *condition*, ~20x smaller than
    per-sample storage.
 
-2. `_load_gray` resizes the uint8 PIL image BEFORE converting to float,
+2. `_load_gray` resizes the uint8 image BEFORE converting to float,
    so every mask produced by `_mask01`/`_binarize` is exactly binary
    and the displacement/geometry grids are exact functions of a uint8
    array. A condition is therefore reconstructible BIT-EXACTLY from:

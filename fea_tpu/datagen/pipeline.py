@@ -1,6 +1,6 @@
 """Datagen orchestrator: random plates -> meshes -> FEM solves -> images.
 
-The TPU-era replacement for the reference's generate loop
+The accelerator replacement for the reference's generate loop
 (datagen/generate.py:12-171): same on-disk contract, but
   * meshing via the native CDT library instead of gmsh,
   * one PCG solve per condition (linear => per-step fields are scaled
@@ -247,9 +247,6 @@ def generate_data(
     """Sequential single-host datagen (the vmapped batch path lives in
     fea_tpu.datagen.batched). Returns summary stats."""
     assert num_steps_per_condition > 1, "Must have at least 2 steps per condition."
-    from ..utils.device import enable_compilation_cache
-
-    enable_compilation_cache()
     verify_directory(data_dir)
 
     geometry_sampler = GeometrySampler(

@@ -18,7 +18,8 @@ import os
 from typing import Tuple
 
 import numpy as np
-from PIL import Image
+
+from ..utils.png import drop_alpha, read_png, write_png
 
 
 def verify_directory(directory: str) -> None:
@@ -47,8 +48,7 @@ def save_gray_png(path: str, img: np.ndarray) -> None:
     The reference's renderer wrote RGB; its dataset loader grayscales
     immediately (diffusion.py:121), so L-mode files are drop-in and 3x
     smaller/faster to encode."""
-    arr = np.asarray(img, dtype=np.uint8)
-    Image.fromarray(arr, mode="L").save(path, compress_level=1)
+    write_png(path, np.asarray(img, dtype=np.uint8))
 
 
 def domain_vtk_name(step: int, num_steps: int) -> str:
@@ -61,8 +61,10 @@ def domain_vtk_name(step: int, num_steps: int) -> str:
 
 def find_image_bounds(image_path: str) -> Tuple[int, int, int, int]:
     """Bounding box of non-white pixels (reference utils.py:18-56 probe,
-    kept for API parity; the TPU pipeline frames analytically instead)."""
-    arr = np.array(Image.open(image_path).convert("RGB"))
+    kept for API parity; the pipeline frames analytically instead)."""
+    arr = drop_alpha(read_png(image_path))
+    if arr.ndim == 2:
+        arr = arr[:, :, None]
     nonwhite = (arr != 255).any(axis=-1)
     cols = np.where(nonwhite.any(axis=0))[0]
     rows = np.where(nonwhite.any(axis=1))[0]

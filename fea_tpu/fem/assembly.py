@@ -1,11 +1,11 @@
-"""Matrix-free stiffness application for batched TPU solves.
+"""Matrix-free stiffness application for batched device solves.
 
 Instead of materializing a sparse K (the reference hands a SciPy CSR to
 SuperLU — fea_analysis.py:371-375), we keep per-element 6x6 blocks and
 apply K via gather -> small batched matmul -> incidence gather-sum. The
 incidence form (node dof <- fixed-width list of (element, local-dof)
-slots) avoids data-dependent scatters entirely, which XLA maps far better
-onto the VPU/MXU than scatter-add.
+slots) avoids data-dependent scatters entirely: every accumulation is a
+gather followed by a fixed-width sum, with no scatter-add.
 """
 
 from functools import partial
@@ -24,7 +24,7 @@ class IncidenceOp(NamedTuple):
     Layout contract (element-minor, see elasticity.py): element results are
     (6, M) flattened as k*M + e (k = local dof 2a+comp), and global dof
     vectors are planar (2N,) ordered comp*N + node — both keep the long
-    axis minor so TPU (8,128) tiling stays dense."""
+    axis minor (contiguous)."""
 
     slots: jnp.ndarray  # (ndof, max_deg) int32 indices into padded (6*M+1,)
     n_nodes: int
@@ -81,9 +81,8 @@ def apply_element_stiffness_planar(Ke, dof_idx, incidence_slots, u):
     """y = K u on planar (2N,) dof vectors — the CG-loop hot path.
 
     Ke: (6,6,M) element-minor; dof_idx: (6,M) from element_dof_indices;
-    incidence_slots: (2N, max_deg). Per iteration this moves O(M) dense
-    lane-aligned data; the old (M,6,6)/(M,3,2) layouts moved ~25x that in
-    TPU tile padding alone."""
+    incidence_slots: (2N, max_deg). Per iteration this moves O(M) dense,
+    contiguous data."""
     ue = u[dof_idx]  # (6, M)
     fe = jnp.einsum(
         "ijm,jm->im", Ke, ue, precision=jax.lax.Precision.HIGHEST

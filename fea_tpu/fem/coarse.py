@@ -10,7 +10,7 @@ whole vmapped plate-group's device time and biasing datagen by resampling
 hard-but-valid conditions.
 
 Fix: a coarse space of per-aggregate rigid-body modes (the 2D elasticity
-near-null space: x/y translation + rotation), solved DENSELY on the MXU.
+near-null space: x/y translation + rotation), solved DENSELY.
 
   M^-1 = block-Jacobi  +  P (P^T K P)^-1 P^T      (additive two-level)
 
@@ -19,8 +19,8 @@ near-null space: x/y translation + rotation), solved DENSELY on the MXU.
   * Kc = P^T K P assembled from the element 6x6 blocks by scatter-add
     (device, once per condition — K depends on condition materials/BCs);
   * Kc^-1 formed explicitly via Cholesky so each CG iteration's coarse
-    correction is ONE dense (3Nc,3Nc)x(3Nc) matmul — exactly what the
-    MXU wants, no triangular solves in the hot loop.
+    correction is ONE dense (3Nc,3Nc)x(3Nc) matmul, with no triangular
+    solves in the hot loop.
 
 Everything is static-shape: n_coarse is a pure function of the node
 bucket, so bucketed plates share one compiled kernel.
@@ -201,7 +201,7 @@ def build_coarse_matrix(
 
 
 def coarse_inverse(Kc: jnp.ndarray) -> jnp.ndarray:
-    """Explicit Kc^-1 via Cholesky (one-time, MXU-bound); NaN-safe: a
+    """Explicit Kc^-1 via Cholesky (one-time); NaN-safe: a
     failed factorization (pathological lane) degrades to the zero matrix,
     i.e. plain block-Jacobi for that lane."""
     nc3 = Kc.shape[0]
@@ -236,9 +236,9 @@ def coarse_apply(
         -army * rx + armx * ry, agg_ids, num_segments=n_coarse
     )
     rc = jnp.stack([s0, s1, s2], axis=1).reshape(-1)  # (3Nc,) [3a+m]
-    # precision pin (CLAUDE.md rule): an unpinned matvec lowers to bf16
-    # MXU passes on TPU, making the coarse correction vary ~1e-2 per
-    # iteration — a nonsymmetric, iteration-varying preconditioner that
+    # precision pin: an unpinned f32 matvec may run at reduced precision
+    # (TF32 on GPUs), making the coarse correction vary per iteration —
+    # a nonsymmetric, iteration-varying preconditioner that
     # voids PCG's convergence guarantee exactly on the ill-conditioned
     # lanes the coarse space exists for (flatgroup.py:164 pins its twin)
     zc = jnp.matmul(Kc_inv, rc, precision=_HIGH)

@@ -79,10 +79,8 @@ def element_stiffness_np(coords, triangles, young, poisson):
 def plane_strain_stiffness_em(young, poisson):
     """Element-minor plane-strain D: (3, 3, M) for per-element (M,) inputs.
 
-    TPU layout note: arrays tile on their LAST TWO dims in (8, 128) blocks,
-    so an (M, 3, 3) array stores as (M, 8, 128) — a ~28x HBM blowup that
-    multiplies across vmapped plates/conditions. Keeping the long element
-    axis minor makes every per-element quantity tile densely."""
+    Keeping the long element axis minor (last) keeps every per-element
+    quantity contiguous along M, across vmapped plates/conditions."""
     young = jnp.asarray(young)
     poisson = jnp.asarray(poisson)
     lam = young * poisson / ((1.0 + poisson) * (1.0 - 2.0 * poisson))
@@ -103,9 +101,8 @@ def triangle_geometry(coords, triangles):
 
     Returns (B (3,6,M), area (M,)). B maps the 6 nodal dofs
     (ux0, uy0, ux1, uy1, ux2, uy2) to Voigt strain (exx, eyy, 2exy).
-    Corner coordinates are gathered one (M,) vector at a time — a single
-    coords[triangles] gather would materialize (M,3,2), which TPU tiles
-    to (M,8,128) (~21x padding) on every use."""
+    Corner coordinates are gathered one (M,) vector at a time, so no
+    (M,3,2) intermediate with tiny minor dims is materialized."""
     x = coords[:, 0]
     y = coords[:, 1]
     t0, t1, t2 = triangles[:, 0], triangles[:, 1], triangles[:, 2]
@@ -134,13 +131,14 @@ def element_stiffness(coords, triangles, D):
     D: (3,3) shared, or (3,3,M) per element (see plane_strain_stiffness_em).
     Returns (Ke (6,6,M), B (3,6,M), area (M,)). The (i,j) contractions are
     over the tiny 3-dim — XLA unrolls them into fused multiply-adds over
-    the lane-aligned element axis (pure VPU work; the MXU has nothing to
-    offer 3x3 contractions)."""
+    the element axis (elementwise work; 3x3 contractions gain nothing
+    from a matrix unit)."""
     B, area = triangle_geometry(coords, triangles)
     if D.ndim == 2:
         D = jnp.broadcast_to(D[:, :, None], (3, 3, B.shape[-1]))
-    # Precision.HIGHEST: TPU einsum otherwise lowers to bf16 MXU passes,
-    # which corrupts the stiffness (observed 7.5% displacement error).
+    # Precision.HIGHEST: a reduced-precision f32 contraction (bf16 passes,
+    # or TF32 on GPUs) corrupts the stiffness (up to 7.5% displacement
+    # error observed with bf16 passes).
     DB = jnp.einsum(
         "ijm,jkm->ikm", D, B, precision=jax.lax.Precision.HIGHEST
     )

@@ -1,6 +1,6 @@
 """Batched Jacobi-preconditioned conjugate-gradient solver.
 
-The TPU-native replacement for the reference's ScipyDirect (SuperLU)
+The accelerator replacement for the reference's ScipyDirect (SuperLU)
 sparse LU (fea_analysis.py:371-375). Matrix-free, static shapes, runs
 under jit/vmap, reports convergence + NaN flags that feed the host-side
 condition-resampling loop (reference datagen/generate.py:110-124).
@@ -10,6 +10,10 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+
+# Inner products of the CG recurrences at full f32 precision: a
+# reduced-precision (TF32) dot would perturb the recurrence.
+_HIGH = jax.lax.Precision.HIGHEST
 
 
 class CGResult(NamedTuple):
@@ -25,8 +29,8 @@ def block_diagonal(Ke, triangles, n_nodes):
     markedly more robust than scalar Jacobi for elasticity, especially with
     the zero-stiffness straddling cells the region semantics produce).
 
-    Ke: (6,6,M) element-minor. Returns (2,2,N) — node axis minor, so the
-    blocks tile densely on TPU ((N,2,2) would pad (2,2) up to (8,128))."""
+    Ke: (6,6,M) element-minor. Returns (2,2,N) — node axis minor, like
+    every per-element/per-node array of the solver."""
     # Ke dof order (x0,y0,x1,y1,x2,y2): node-a self block = Ke[2a:2a+2, 2a:2a+2]
     out = jnp.zeros((2, 2, n_nodes), Ke.dtype)
     for a in range(3):
@@ -119,13 +123,13 @@ def pcg_solve(
         def precondition(r):
             return inv_diag * r
 
-    b_norm = jnp.sqrt(jnp.vdot(bm, bm))
+    b_norm = jnp.sqrt(jnp.vdot(bm, bm, precision=_HIGH))
     b_norm = jnp.where(b_norm > 0, b_norm, 1.0)
     atol2 = (tol * b_norm) ** 2
 
     def cond(state):
         x, r, p, rz, k, best_r2, stall, active = state
-        r2 = jnp.vdot(r, r)
+        r2 = jnp.vdot(r, r, precision=_HIGH)
         not_done = (r2 > atol2) & (k < max_iters)
         healthy = jnp.isfinite(r2)
         return not_done & healthy & (stall < stall_limit) & active
@@ -133,15 +137,15 @@ def pcg_solve(
     def body(state):
         x, r, p, rz, k, best_r2, stall, active = state
         Ap = A(p)
-        pAp = jnp.vdot(p, Ap)
+        pAp = jnp.vdot(p, Ap, precision=_HIGH)
         alpha = rz / jnp.where(pAp != 0, pAp, 1.0)
         x = x + alpha * p
         r = r - alpha * Ap
         z = precondition(r)
-        rz_new = jnp.vdot(r, z)
+        rz_new = jnp.vdot(r, z, precision=_HIGH)
         beta = rz_new / jnp.where(rz != 0, rz, 1.0)
         p = z + beta * p
-        r2 = jnp.vdot(r, r)
+        r2 = jnp.vdot(r, r, precision=_HIGH)
         improved = r2 < 0.9 * best_r2
         best_r2 = jnp.where(improved, r2, best_r2)
         stall = jnp.where(improved, 0, stall + 1)
@@ -156,15 +160,15 @@ def pcg_solve(
     for _ in range(max(restarts, 1)):
         r = bm - A(x)
         z = precondition(r)
-        rz = jnp.vdot(r, z)
+        rz = jnp.vdot(r, z, precision=_HIGH)
         # a NaN-poisoned x would propagate: reset instead (keeps while_loop
         # shapes static, costs nothing in the healthy path)
         healthy = jnp.isfinite(rz)
         x = jnp.where(healthy, x, 0.0)
         r = jnp.where(healthy, r, bm)
         z = jnp.where(healthy, z, precondition(bm))
-        rz = jnp.where(healthy, rz, jnp.vdot(r, precondition(r)))
-        r2_start = jnp.vdot(r, r)
+        rz = jnp.where(healthy, rz, jnp.vdot(r, precondition(r), precision=_HIGH))
+        r2_start = jnp.vdot(r, r, precision=_HIGH)
         x, r, p, rz, k, _, _, _ = jax.lax.while_loop(
             cond,
             body,
@@ -173,12 +177,12 @@ def pcg_solve(
         total_iters = total_iters + k
         # Give up remaining restarts once a full restart stops helping
         # (already converged lanes exit instantly via the r2 > atol2 cond).
-        r2_end = jnp.vdot(r, r)
+        r2_end = jnp.vdot(r, r, precision=_HIGH)
         active = active & (r2_end < 0.9 * r2_start)
 
     # Recompute true residual for reporting.
     rtrue = bm - A(x)
-    rnorm = jnp.sqrt(jnp.vdot(rtrue, rtrue)) / b_norm
+    rnorm = jnp.sqrt(jnp.vdot(rtrue, rtrue, precision=_HIGH)) / b_norm
     failed = ~jnp.isfinite(rnorm) | ~jnp.all(jnp.isfinite(x))
     converged = (rnorm <= accept_tol) & ~failed
     return CGResult(

@@ -1,6 +1,6 @@
 // cdt.cpp — constrained-Delaunay-style triangle mesher for plate domains.
 //
-// TPU-native replacement for the reference's gmsh dependency
+// Native replacement for the reference's gmsh dependency
 // (reference datagen/mesh_generator.py:246-317): polygon-with-holes ->
 // uniform unstructured triangle mesh at a target edge length.
 //

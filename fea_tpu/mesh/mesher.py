@@ -6,12 +6,19 @@ tags": nodes 0..P-1 are the polygon corner vertices — exterior ring first,
 then hole rings in order — so condition sampling and the collinear-edge
 region predicate (reference fea_analysis.py:183-188) work on node indices.
 
-A SciPy-Delaunay fallback is used if the shared library cannot be built.
+The library is built with g++ on first use, into a file named by a hash
+of the source, the compiler flags, the compiler's version and the
+machine, so a library built elsewhere is never loaded. If it cannot be
+built, a SciPy-Delaunay fallback meshes instead (for test environments:
+its meshes differ) and says so on stderr.
 """
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
+import sys
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
 
@@ -20,8 +27,9 @@ import numpy as np
 from ..geometry.polygon import Polygon
 
 _CDT_DIR = os.path.join(os.path.dirname(__file__), "cdt")
-_SO_PATH = os.path.join(_CDT_DIR, "libfea_cdt.so")
 _SRC_PATH = os.path.join(_CDT_DIR, "cdt.cpp")
+_CXX = "g++"
+_CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 
 class MeshError(Exception):
@@ -78,27 +86,45 @@ _lib = None
 _lib_failed = False
 
 
-def _build_library() -> Optional[str]:
-    if os.path.exists(_SO_PATH) and os.path.getmtime(_SO_PATH) >= os.path.getmtime(
-        _SRC_PATH
-    ):
-        return _SO_PATH
-    cmd = [
-        "g++",
-        "-O3",
-        "-march=native",
-        "-shared",
-        "-fPIC",
-        "-std=c++17",
-        _SRC_PATH,
-        "-o",
-        _SO_PATH,
-    ]
+def _library_path() -> Optional[str]:
+    """`cdt/libfea_cdt-<key>.so`, keyed by everything that shapes the
+    binary; None when there is no compiler."""
     try:
-        subprocess.run(cmd, check=True, capture_output=True)
-        return _SO_PATH
+        version = subprocess.run(
+            [_CXX, "--version"], check=True, capture_output=True, text=True
+        ).stdout
     except (subprocess.CalledProcessError, FileNotFoundError):
         return None
+    h = hashlib.sha256()
+    with open(_SRC_PATH, "rb") as f:
+        h.update(f.read())
+    for part in (*_CXX_FLAGS, version, platform.machine()):
+        h.update(b"\0" + part.encode())
+    return os.path.join(_CDT_DIR, f"libfea_cdt-{h.hexdigest()[:16]}.so")
+
+
+def _build_library() -> Optional[str]:
+    so_path = _library_path()
+    if so_path is None:
+        return None
+    if os.path.exists(so_path):
+        return so_path
+    # build beside the target and rename: concurrent builders (test
+    # workers) never load a half-written library
+    tmp = f"{so_path}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(
+            [_CXX, *_CXX_FLAGS, _SRC_PATH, "-o", tmp],
+            check=True,
+            capture_output=True,
+        )
+        os.replace(tmp, so_path)
+        return so_path
+    except (subprocess.CalledProcessError, FileNotFoundError):
+        return None
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
 
 
 def _get_lib():
@@ -108,6 +134,13 @@ def _get_lib():
     so = _build_library()
     if so is None:
         _lib_failed = True
+        print(
+            "WARNING: the native CDT mesher could not be built "
+            f"({_CXX} {' '.join(_CXX_FLAGS)} {_SRC_PATH}); meshing falls back "
+            "to SciPy Delaunay, whose meshes differ",
+            file=sys.stderr,
+            flush=True,
+        )
         return None
     lib = ctypes.CDLL(so)
     lib.fea_triangulate.restype = ctypes.c_int
@@ -134,6 +167,11 @@ def _get_lib():
     ]
     _lib = lib
     return _lib
+
+
+def native_mesher_loaded() -> bool:
+    """True when meshing runs through the native CDT library."""
+    return _get_lib() is not None
 
 
 def hinge_singular(triangles, fixed_mask) -> Optional[bool]:

@@ -29,20 +29,18 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
-from PIL import Image, ImageOps
 
 from ..mesh import read_vtk
+from ..utils import png
+from ..utils.progress import progress as progress_lines
 
 
 def _load_rotated_gray(path, image_size: int) -> np.ndarray:
-    return np.asarray(
-        ImageOps.grayscale(
-            Image.open(path)
-            .resize((image_size, image_size))
-            .transpose(Image.ROTATE_270)
-        ),
-        dtype=np.float64,
-    )
+    """resize (Pillow's default bicubic) -> rotate 270 -> grayscale, as
+    the reference's metrics read images."""
+    img = png.drop_alpha(png.read_png(path))
+    img = png.resize(img, (image_size, image_size), "bicubic")
+    return png.to_gray(png.rotate_270(img)).astype(np.float64)
 
 
 def predicted_displacement_at_nodes(
@@ -187,9 +185,7 @@ def calculate_accuracy(
     rmses = np.zeros(total)
     indices = range(total)
     if progress:
-        from tqdm import tqdm
-
-        indices = tqdm(indices, desc="accuracy")
+        indices = progress_lines(indices, desc="accuracy")
     for index in indices:
         mesh_p, x_p, y_p, g_p, _ = _sample_paths(
             gt_path, samples_path, index, conditions_per_plate, steps_per_condition
@@ -237,9 +233,7 @@ def calculate_accuracy_per_step(
     filled = np.zeros((total, n_steps), dtype=bool)
     indices = range(total)
     if progress:
-        from tqdm import tqdm
-
-        indices = tqdm(indices, desc="accuracy (per step)")
+        indices = progress_lines(indices, desc="accuracy (per step)")
     for index in indices:
         mesh_p, x_p, y_p, g_p, step = _sample_paths(
             gt_path, samples_path, index, conditions_per_plate, steps_per_condition

@@ -1,4 +1,4 @@
-"""FDN-UNet model family (flax.linen, NHWC).
+"""FDN-UNet model family (NHWC).
 
 The trained architecture of the reference — split encoder / decoder /
 auxiliary-range-decoder (model/fdnunetwithaux.py:341-894) — plus the
@@ -11,23 +11,28 @@ Channel plan for the default config (input_dim=64, 4 stages):
   decoder: 4 x [2 plain resblocks (skip concat) + up] -> final resblock
            -> 1x1 conv -> amax normalization
   aux: middle flattened -> MLP -> (sigmoid sign head, log head)
+
+Each model is a frozen dataclass of its hyperparameters with
+`init(key, *inputs) -> {"params": tree}` and `apply(variables, *inputs)`
+(models/layers.py).
 """
 
+from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import jax.numpy as jnp
-from flax import linen as nn
 
-from .attention import FullAttention, LinearAttention
+from .attention import full_attention, linear_attention
 from .blocks import (
-    AuxiliaryRangePredictor,
-    ConditionedResnetBlock,
-    ConditionFeatureExtractor,
-    Downsample,
-    Upsample,
     amax_normalize,
+    auxiliary_range_predictor,
+    condition_feature_extractor,
+    conditioned_resnet_block,
+    downsample,
+    upsample,
 )
-from .time_embedding import TimeEmbeddingMLP
+from .layers import Model, Scope, conv
+from .time_embedding import time_embedding_mlp
 
 
 def _stage_dims(input_dim: int, initial_dim: Optional[int], num_stages: int):
@@ -35,7 +40,16 @@ def _stage_dims(input_dim: int, initial_dim: Optional[int], num_stages: int):
     return [initial] + [input_dim * (2**i) for i in range(num_stages)]
 
 
-class FDNUNetEncoder(nn.Module):
+def _check_divisible(x, num_stages: int):
+    max_resolution = 2 ** (num_stages - 1)
+    if any(d % max_resolution for d in x.shape[1:3]):
+        raise ValueError(
+            f"spatial dims {x.shape[1:3]} must be divisible by {max_resolution}"
+        )
+
+
+@dataclass(frozen=True)
+class FDNUNetEncoder(Model):
     """Down path + middle (fdnunetwithaux.py:341-667). Returns
     (middle, hidden_states x 2*num_stages, residual)."""
 
@@ -47,16 +61,8 @@ class FDNUNetEncoder(nn.Module):
     num_condition_channels: Optional[int] = None
     num_groups: int = 8
 
-    @property
-    def max_resolution(self):
-        return 2 ** (self.num_stages - 1)
-
-    @nn.compact
-    def __call__(self, x, x_auxiliary_condition, x_self_condition=None):
-        assert all(d % self.max_resolution == 0 for d in x.shape[1:3]), (
-            f"spatial dims {x.shape[1:3]} must be divisible by "
-            f"{self.max_resolution}"
-        )
+    def forward(self, s: Scope, x, x_auxiliary_condition, x_self_condition=None):
+        _check_divisible(x, self.num_stages)
         dims = _stage_dims(self.input_dim, self.initial_dim, self.num_stages)
         pairs = list(zip(dims[:-1], dims[1:]))
 
@@ -65,40 +71,36 @@ class FDNUNetEncoder(nn.Module):
                 x_self_condition = jnp.zeros_like(x)
             x = jnp.concatenate([x, x_self_condition], axis=-1)
 
-        x = nn.Conv(dims[0], (3, 3), padding=1, name="initial_conv")(x)
+        x = conv(s, x, dims[0], name="initial_conv")
         residual = x
 
-        features = ConditionFeatureExtractor(
-            dims, name="condition_feature_extractor"
-        )(x_auxiliary_condition)
+        features = condition_feature_extractor(
+            s, x_auxiliary_condition, dims, name="condition_feature_extractor"
+        )
+
+        def block(x, dim, feats, name):
+            return conditioned_resnet_block(
+                s, x, dim, feats, num_groups=self.num_groups, name=name
+            )
 
         hidden_states = []
         for index, (in_dim, out_dim) in enumerate(pairs):
-            is_last = index == self.num_stages - 1
-            x = ConditionedResnetBlock(
-                in_dim, num_groups=self.num_groups, name=f"down{index}_block1"
-            )(x, features[index])
+            x = block(x, in_dim, features[index], f"down{index}_block1")
             hidden_states.append(x)
-            x = ConditionedResnetBlock(
-                in_dim, num_groups=self.num_groups, name=f"down{index}_block2"
-            )(x, features[index])
+            x = block(x, in_dim, features[index], f"down{index}_block2")
             hidden_states.append(x)
-            if is_last:
-                x = nn.Conv(out_dim, (3, 3), padding=1, name=f"down{index}_conv")(x)
+            if index == self.num_stages - 1:
+                x = conv(s, x, out_dim, name=f"down{index}_conv")
             else:
-                x = Downsample(out_dim, name=f"down{index}_downsample")(x)
+                x = downsample(s, x, out_dim, name=f"down{index}_downsample")
 
-        x = ConditionedResnetBlock(
-            dims[-1], num_groups=self.num_groups, name="middle_block_1"
-        )(x, features[-1])
-        x = ConditionedResnetBlock(
-            dims[-1], num_groups=self.num_groups, name="middle_block_2"
-        )(x, features[-1])
-
+        x = block(x, dims[-1], features[-1], "middle_block_1")
+        x = block(x, dims[-1], features[-1], "middle_block_2")
         return x, hidden_states, residual
 
 
-class FDNUNetDecoder(nn.Module):
+@dataclass(frozen=True)
+class FDNUNetDecoder(Model):
     """Up path with skip concatenation and amax output normalization
     (fdnunetwithaux.py:670-802)."""
 
@@ -110,47 +112,39 @@ class FDNUNetDecoder(nn.Module):
     num_condition_channels: Optional[int] = None
     num_groups: int = 8
 
-    @nn.compact
-    def __call__(self, x, hidden_states: List[jnp.ndarray], residual):
+    def forward(self, s: Scope, x, hidden_states: List[jnp.ndarray], residual):
         dims = _stage_dims(self.input_dim, self.initial_dim, self.num_stages)
         pairs = list(zip(dims[:-1], dims[1:]))
         final_dim = (
             self.final_dim if self.final_dim is not None else self.num_channels
         )
 
+        def block(x, dim, name):
+            return conditioned_resnet_block(
+                s, x, dim, use_fdn=False, num_groups=self.num_groups, name=name
+            )
+
         hidden = list(hidden_states)
         for index, (in_dim, out_dim) in enumerate(reversed(pairs)):
-            is_last = index == self.num_stages - 1
             x = jnp.concatenate([x, hidden.pop()], axis=-1)
-            x = ConditionedResnetBlock(
-                out_dim,
-                use_fdn=False,
-                num_groups=self.num_groups,
-                name=f"up{index}_block1",
-            )(x)
+            x = block(x, out_dim, f"up{index}_block1")
             x = jnp.concatenate([x, hidden.pop()], axis=-1)
-            x = ConditionedResnetBlock(
-                out_dim,
-                use_fdn=False,
-                num_groups=self.num_groups,
-                name=f"up{index}_block2",
-            )(x)
-            if is_last:
-                x = nn.Conv(in_dim, (3, 3), padding=1, name=f"up{index}_conv")(x)
+            x = block(x, out_dim, f"up{index}_block2")
+            if index == self.num_stages - 1:
+                x = conv(s, x, in_dim, name=f"up{index}_conv")
             else:
-                x = Upsample(in_dim, name=f"up{index}_upsample")(x)
+                x = upsample(s, x, in_dim, name=f"up{index}_upsample")
 
         x = jnp.concatenate([x, residual], axis=-1)
-        x = ConditionedResnetBlock(
-            dims[0], use_fdn=False, num_groups=self.num_groups, name="final_resnet"
-        )(x)
-        x = nn.Conv(final_dim, (1, 1), name="final_conv")(x)
+        x = block(x, dims[0], "final_resnet")
+        x = conv(s, x, final_dim, (1, 1), padding=0, name="final_conv")
         # amax (signed max, not abs) normalization — a faithful quirk of
         # the reference (fdnunetwithaux.py:800), zero-divisor guarded.
         return amax_normalize(x)
 
 
-class FDNUNetAuxDecoder(nn.Module):
+@dataclass(frozen=True)
+class FDNUNetAuxDecoder(Model):
     """Auxiliary range decoder over middle features
     (fdnunetwithaux.py:805-828)."""
 
@@ -162,14 +156,15 @@ class FDNUNetAuxDecoder(nn.Module):
     num_layers: int = 3
     num_stages: int = 4
 
-    @nn.compact
-    def __call__(self, x):
-        return AuxiliaryRangePredictor(
+    def forward(self, s: Scope, x):
+        return auxiliary_range_predictor(
+            s,
+            x,
             output_dim=self.final_dim * 2,
             hidden_dim=self.hidden_dim,
             num_layers=self.num_layers,
             name="auxiliary_range_predictor",
-        )(x)
+        )
 
 
 def create_models(
@@ -218,7 +213,8 @@ def create_models(
     return encoder, decoder, auxiliary
 
 
-class FDNUNet(nn.Module):
+@dataclass(frozen=True)
+class FDNUNet(Model):
     """Monolithic FDN-UNet with per-stage attention (model/fdnunet.py:381-657):
     LinearAttention at outer stages, FullAttention at the innermost stage
     and the middle block; optional self-conditioning channel and optional
@@ -235,18 +231,12 @@ class FDNUNet(nn.Module):
     attention_head_dim: int = 32
     num_attention_heads: int = 4
     use_full_attention: bool = False
-    use_flash_attention: bool = False
     use_time_embedding: bool = False
 
-    @property
-    def max_resolution(self):
-        return 2 ** (self.num_stages - 1)
-
-    @nn.compact
-    def __call__(
-        self, x, x_auxiliary_condition, x_self_condition=None, time=None
+    def forward(
+        self, s: Scope, x, x_auxiliary_condition, x_self_condition=None, time=None
     ):
-        assert all(d % self.max_resolution == 0 for d in x.shape[1:3])
+        _check_divisible(x, self.num_stages)
         dims = _stage_dims(self.input_dim, self.initial_dim, self.num_stages)
         pairs = list(zip(dims[:-1], dims[1:]))
         final_dim = (
@@ -265,78 +255,64 @@ class FDNUNet(nn.Module):
 
         time_embedding = None
         if self.use_time_embedding and time is not None:
-            time_embedding = TimeEmbeddingMLP(self.input_dim)(time)
+            time_embedding = time_embedding_mlp(s, time, self.input_dim)
 
-        x = nn.Conv(dims[0], (3, 3), padding=1, name="initial_conv")(x)
+        x = conv(s, x, dims[0], name="initial_conv")
         residual = x
-        features = ConditionFeatureExtractor(
-            dims, name="condition_feature_extractor"
-        )(x_auxiliary_condition)
+        features = condition_feature_extractor(
+            s, x_auxiliary_condition, dims, name="condition_feature_extractor"
+        )
 
-        def attn(use_full, dim, name):
-            if use_full:
-                return FullAttention(
-                    num_heads=self.num_attention_heads,
-                    head_dim=self.attention_head_dim,
-                    use_flash=self.use_flash_attention,
-                    name=name,
-                )
-            return LinearAttention(
+        def attn(x, use_full, name):
+            fn = full_attention if use_full else linear_attention
+            return fn(
+                s,
+                x,
                 num_heads=self.num_attention_heads,
                 head_dim=self.attention_head_dim,
                 name=name,
             )
 
+        def block(x, dim, feats, name):
+            return conditioned_resnet_block(
+                s,
+                x,
+                dim,
+                feats,
+                time_embedding,
+                use_fdn=feats is not None,
+                num_groups=self.num_groups,
+                name=name,
+            )
+
         hidden_states = []
         for index, (in_dim, out_dim) in enumerate(pairs):
-            is_last = index == self.num_stages - 1
-            x = ConditionedResnetBlock(
-                in_dim, num_groups=self.num_groups, name=f"down{index}_block1"
-            )(x, features[index], time_embedding)
+            x = block(x, in_dim, features[index], f"down{index}_block1")
             hidden_states.append(x)
-            x = ConditionedResnetBlock(
-                in_dim, num_groups=self.num_groups, name=f"down{index}_block2"
-            )(x, features[index], time_embedding)
-            x = attn(full_attn[index], in_dim, f"down{index}_attention")(x) + x
+            x = block(x, in_dim, features[index], f"down{index}_block2")
+            x = attn(x, full_attn[index], f"down{index}_attention") + x
             hidden_states.append(x)
-            if is_last:
-                x = nn.Conv(out_dim, (3, 3), padding=1, name=f"down{index}_conv")(x)
+            if index == self.num_stages - 1:
+                x = conv(s, x, out_dim, name=f"down{index}_conv")
             else:
-                x = Downsample(out_dim, name=f"down{index}_downsample")(x)
+                x = downsample(s, x, out_dim, name=f"down{index}_downsample")
 
-        x = ConditionedResnetBlock(
-            dims[-1], num_groups=self.num_groups, name="middle_block_1"
-        )(x, features[-1], time_embedding)
-        x = attn(True, dims[-1], "middle_attention")(x) + x
-        x = ConditionedResnetBlock(
-            dims[-1], num_groups=self.num_groups, name="middle_block_2"
-        )(x, features[-1], time_embedding)
+        x = block(x, dims[-1], features[-1], "middle_block_1")
+        x = attn(x, True, "middle_attention") + x
+        x = block(x, dims[-1], features[-1], "middle_block_2")
 
         for index, (in_dim, out_dim) in enumerate(reversed(pairs)):
-            is_last = index == self.num_stages - 1
             x = jnp.concatenate([x, hidden_states.pop()], axis=-1)
-            x = ConditionedResnetBlock(
-                out_dim,
-                use_fdn=False,
-                num_groups=self.num_groups,
-                name=f"up{index}_block1",
-            )(x, None, time_embedding)
+            x = block(x, out_dim, None, f"up{index}_block1")
             x = jnp.concatenate([x, hidden_states.pop()], axis=-1)
-            x = ConditionedResnetBlock(
-                out_dim,
-                use_fdn=False,
-                num_groups=self.num_groups,
-                name=f"up{index}_block2",
-            )(x, None, time_embedding)
-            x = attn(full_attn[-(index + 1)], out_dim, f"up{index}_attention")(x) + x
-            if is_last:
-                x = nn.Conv(in_dim, (3, 3), padding=1, name=f"up{index}_conv")(x)
+            x = block(x, out_dim, None, f"up{index}_block2")
+            x = attn(x, full_attn[-(index + 1)], f"up{index}_attention") + x
+            if index == self.num_stages - 1:
+                x = conv(s, x, in_dim, name=f"up{index}_conv")
             else:
-                x = Upsample(in_dim, name=f"up{index}_upsample")(x)
+                x = upsample(s, x, in_dim, name=f"up{index}_upsample")
 
         x = jnp.concatenate([x, residual], axis=-1)
-        x = ConditionedResnetBlock(
-            dims[0], use_fdn=False, num_groups=self.num_groups, name="final_resnet"
-        )(x, None, time_embedding)
-        x = nn.Conv(final_dim, (1, 1), name="final_conv")(x)
+        x = block(x, dims[0], None, "final_resnet")
+        x = conv(s, x, final_dim, (1, 1), padding=0, name="final_conv")
         return amax_normalize(x)

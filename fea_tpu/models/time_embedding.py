@@ -3,33 +3,26 @@ of the reference's forward paths, but part of the documented capability
 surface for the conditional-diffusion mode)."""
 
 import math
+from typing import Optional
 
+import jax
 import jax.numpy as jnp
-from flax import linen as nn
+
+from .layers import Scope, dense
 
 
-class SinusoidalPosEmb(nn.Module):
-    embedding_dim: int
-    theta: int = 10000
-
-    @nn.compact
-    def __call__(self, positions):
-        half = self.embedding_dim // 2
-        freq = math.log(self.theta) / (half - 1)
-        freq = jnp.exp(jnp.arange(half) * -freq)
-        angles = positions[:, None] * freq[None, :]
-        return jnp.concatenate([jnp.sin(angles), jnp.cos(angles)], axis=-1)
+def sinusoidal_pos_emb(positions, embedding_dim: int, theta: int = 10000):
+    half = embedding_dim // 2
+    freq = math.log(theta) / (half - 1)
+    freq = jnp.exp(jnp.arange(half) * -freq)
+    angles = positions[:, None] * freq[None, :]
+    return jnp.concatenate([jnp.sin(angles), jnp.cos(angles)], axis=-1)
 
 
-class TimeEmbeddingMLP(nn.Module):
+def time_embedding_mlp(s: Scope, t, input_dim: int, name: Optional[str] = None):
     """SinusoidalPosEmb -> Linear -> GELU -> Linear (fdnunet.py:406-412)."""
-
-    input_dim: int
-
-    @nn.compact
-    def __call__(self, t):
-        dim = self.input_dim * 4
-        x = SinusoidalPosEmb(self.input_dim)(t)
-        x = nn.Dense(dim)(x)
-        x = nn.gelu(x)
-        return nn.Dense(dim)(x)
+    s = s.child("TimeEmbeddingMLP", name)
+    dim = input_dim * 4
+    x = sinusoidal_pos_emb(t, input_dim)
+    x = jax.nn.gelu(dense(s, x, dim))
+    return dense(s, x, dim)

@@ -4,23 +4,20 @@ its model-family surface). Conditions are concatenated input channels
 (no FDN); attention is linear at outer stages and full at the innermost;
 output uses the same amax normalization."""
 
+from dataclasses import dataclass
 from typing import Optional
 
 import jax.numpy as jnp
-from flax import linen as nn
 
-from .attention import FullAttention, LinearAttention
-from .blocks import (
-    ConditionedResnetBlock,
-    Downsample,
-    Upsample,
-    amax_normalize,
-)
-from .fdnunet import _stage_dims
-from .time_embedding import TimeEmbeddingMLP
+from .attention import full_attention, linear_attention
+from .blocks import amax_normalize, conditioned_resnet_block, downsample, upsample
+from .fdnunet import _check_divisible, _stage_dims
+from .layers import Model, Scope, conv
+from .time_embedding import time_embedding_mlp
 
 
-class UNet(nn.Module):
+@dataclass(frozen=True)
+class UNet(Model):
     input_dim: int
     initial_dim: Optional[int] = None
     final_dim: Optional[int] = None
@@ -32,16 +29,10 @@ class UNet(nn.Module):
     attention_head_dim: int = 32
     num_attention_heads: int = 4
     use_full_attention: bool = False
-    use_flash_attention: bool = False
     use_time_embedding: bool = False
 
-    @property
-    def max_resolution(self):
-        return 2 ** (self.num_stages - 1)
-
-    @nn.compact
-    def __call__(self, x, x_condition=None, x_self_condition=None, time=None):
-        assert all(d % self.max_resolution == 0 for d in x.shape[1:3])
+    def forward(self, s: Scope, x, x_condition=None, x_self_condition=None, time=None):
+        _check_divisible(x, self.num_stages)
         dims = _stage_dims(self.input_dim, self.initial_dim, self.num_stages)
         pairs = list(zip(dims[:-1], dims[1:]))
         final_dim = (
@@ -62,60 +53,60 @@ class UNet(nn.Module):
 
         time_embedding = None
         if self.use_time_embedding and time is not None:
-            time_embedding = TimeEmbeddingMLP(self.input_dim)(time)
+            time_embedding = time_embedding_mlp(s, time, self.input_dim)
 
-        def block(dim, name):
-            return ConditionedResnetBlock(
-                dim, use_fdn=False, num_groups=self.num_groups, name=name
+        def block(x, dim, name):
+            return conditioned_resnet_block(
+                s,
+                x,
+                dim,
+                time_embedding=time_embedding,
+                use_fdn=False,
+                num_groups=self.num_groups,
+                name=name,
             )
 
-        def attn(use_full, name):
-            if use_full:
-                return FullAttention(
-                    num_heads=self.num_attention_heads,
-                    head_dim=self.attention_head_dim,
-                    use_flash=self.use_flash_attention,
-                    name=name,
-                )
-            return LinearAttention(
+        def attn(x, use_full, name):
+            fn = full_attention if use_full else linear_attention
+            return fn(
+                s,
+                x,
                 num_heads=self.num_attention_heads,
                 head_dim=self.attention_head_dim,
                 name=name,
             )
 
-        x = nn.Conv(dims[0], (3, 3), padding=1, name="initial_conv")(x)
+        x = conv(s, x, dims[0], name="initial_conv")
         residual = x
 
         hidden_states = []
         for index, (in_dim, out_dim) in enumerate(pairs):
-            is_last = index == self.num_stages - 1
-            x = block(in_dim, f"down{index}_block1")(x, None, time_embedding)
+            x = block(x, in_dim, f"down{index}_block1")
             hidden_states.append(x)
-            x = block(in_dim, f"down{index}_block2")(x, None, time_embedding)
-            x = attn(full_attn[index], f"down{index}_attention")(x) + x
+            x = block(x, in_dim, f"down{index}_block2")
+            x = attn(x, full_attn[index], f"down{index}_attention") + x
             hidden_states.append(x)
-            if is_last:
-                x = nn.Conv(out_dim, (3, 3), padding=1, name=f"down{index}_conv")(x)
+            if index == self.num_stages - 1:
+                x = conv(s, x, out_dim, name=f"down{index}_conv")
             else:
-                x = Downsample(out_dim, name=f"down{index}_downsample")(x)
+                x = downsample(s, x, out_dim, name=f"down{index}_downsample")
 
-        x = block(dims[-1], "middle_block_1")(x, None, time_embedding)
-        x = attn(True, "middle_attention")(x) + x
-        x = block(dims[-1], "middle_block_2")(x, None, time_embedding)
+        x = block(x, dims[-1], "middle_block_1")
+        x = attn(x, True, "middle_attention") + x
+        x = block(x, dims[-1], "middle_block_2")
 
         for index, (in_dim, out_dim) in enumerate(reversed(pairs)):
-            is_last = index == self.num_stages - 1
             x = jnp.concatenate([x, hidden_states.pop()], axis=-1)
-            x = block(out_dim, f"up{index}_block1")(x, None, time_embedding)
+            x = block(x, out_dim, f"up{index}_block1")
             x = jnp.concatenate([x, hidden_states.pop()], axis=-1)
-            x = block(out_dim, f"up{index}_block2")(x, None, time_embedding)
-            x = attn(full_attn[-(index + 1)], f"up{index}_attention")(x) + x
-            if is_last:
-                x = nn.Conv(in_dim, (3, 3), padding=1, name=f"up{index}_conv")(x)
+            x = block(x, out_dim, f"up{index}_block2")
+            x = attn(x, full_attn[-(index + 1)], f"up{index}_attention") + x
+            if index == self.num_stages - 1:
+                x = conv(s, x, in_dim, name=f"up{index}_conv")
             else:
-                x = Upsample(in_dim, name=f"up{index}_upsample")(x)
+                x = upsample(s, x, in_dim, name=f"up{index}_upsample")
 
         x = jnp.concatenate([x, residual], axis=-1)
-        x = block(dims[0], "final_resnet")(x, None, time_embedding)
-        x = nn.Conv(final_dim, (1, 1), name="final_conv")(x)
+        x = block(x, dims[0], "final_resnet")
+        x = conv(s, x, final_dim, (1, 1), padding=0, name="final_conv")
         return amax_normalize(x)

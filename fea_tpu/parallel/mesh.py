@@ -2,14 +2,13 @@
 
 The reference delegated distribution to HF Accelerate's DDP wrapper
 (diffusion.py:456-458, 567-586) — gradient all-reduce over NCCL with
-host-side barriers. The TPU-native equivalent is a single jax.Array
-program: a 'dp' mesh over ICI (plus an outer 'dcn' axis across hosts /
-slices when the multi-controller runtime is active, parallel/
-distributed.py), batches sharded along ('dcn','dp'), params replicated;
-XLA inserts the gradient psum during jit compilation. No user-visible
-collectives, no barriers. Within a slice the psum rides ICI; the 'dcn'
-axis is outermost so the cross-slice segment of the reduction is the
-small final combine over DCN, per the hybrid-mesh layout rule.
+host-side barriers. Here it is a single jax.Array program: a 'dp' mesh
+over the cards of a host (plus an outer 'dcn' axis across processes
+when the multi-controller runtime is active, parallel/distributed.py),
+batches sharded along ('dcn','dp'), params replicated; XLA inserts the
+gradient psum during jit compilation and lowers it to an NCCL
+all-reduce on GPUs. No user-visible collectives, no barriers. The cards
+of a host are joined all to all, so the mesh needs no topology.
 
 The model here is small (1e7-1e8 params, images <= 512^2), so data
 parallelism is the only distribution the workload needs (SURVEY.md §2,
@@ -31,8 +30,8 @@ def make_mesh(
 ) -> Mesh:
     """Build the device mesh.
 
-    ``dcn_size=None`` auto-detects: one mesh axis per-slice when the
-    process is alone, an outer ('dcn', ...) axis of size
+    ``dcn_size=None`` auto-detects: one mesh axis when the process is
+    alone, an outer ('dcn', ...) axis of size
     ``jax.process_count()`` under the multi-controller runtime (the
     reference's multi-node Accelerate launch, diffusion.py:456-458).
     Pass ``dcn_size`` explicitly to exercise the hybrid layout on a
@@ -49,29 +48,10 @@ def make_mesh(
         )
         per = n // dcn_size
         if jax.process_count() == dcn_size and n == len(devices):
-            # real multi-host: group devices so 'dp' neighbours share a
-            # slice (ICI) and only the outer axis crosses DCN
-            from jax.experimental import mesh_utils
-
-            try:
-                dev_grid = mesh_utils.create_hybrid_device_mesh(
-                    mesh_shape=(1, per),
-                    dcn_mesh_shape=(dcn_size, 1),
-                    devices=devices,
-                )
-            except ValueError:
-                # Non-TPU backends report ONE slice for every device
-                # regardless of process (CPU/gloo: slice_index is 0
-                # everywhere), so the slice-granule grouping cannot see
-                # the process boundary. Group by process_index directly —
-                # for a one-slice-per-host deployment this is the same
-                # layout the hybrid helper would produce ('dp' neighbours
-                # share a host, only 'dcn' crosses processes). Found by
-                # the real 2-process run (benchmarks/multiprocess_smoke.py).
-                by_proc = sorted(
-                    devices, key=lambda d: (d.process_index, d.id)
-                )
-                dev_grid = np.asarray(by_proc).reshape(dcn_size, per)
+            # real multi-host: 'dp' neighbours share a process and only
+            # the outer 'dcn' axis crosses processes
+            by_proc = sorted(devices, key=lambda d: (d.process_index, d.id))
+            dev_grid = np.asarray(by_proc).reshape(dcn_size, per)
         else:
             dev_grid = np.asarray(devices[:n]).reshape(dcn_size, per)
         names = ("dcn",) + tuple(axis_names)

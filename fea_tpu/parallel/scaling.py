@@ -16,10 +16,10 @@ host cores, so zero-overhead sharding means t_n ~= n * t_1 and
 
     efficiency = n * t_1 / t_n                         (in [0, ~1])
 
-isolates partition + dispatch overhead. On real chips the devices run
-concurrently, so projected speedup = n_devices * efficiency assuming
-ICI latency stays subdominant (the program has no collectives, so the
-assumption is only about dispatch fan-out).
+isolates partition + dispatch overhead. On real cards the devices run
+concurrently, so projected speedup = n_devices * efficiency (the
+program has no collectives, so the projection assumes only that
+dispatch fan-out stays cheap).
 
 Why not fixed-TOTAL-work (all plates in one flat system vs sharded)?
 The single-device flat program iterates its while_loop until every
@@ -27,8 +27,8 @@ lane in the whole group finishes, while the sharded program stops each
 device at its own plate's convergence — DIFFERENT total work. Measured
 on 8 distinct plates that layout reports "efficiency" 2.4 (superlinear
 — it was measuring the lockstep-padding win, not placement overhead;
-round-3 VERDICT #6 flagged the same problem at 0.03 s of work where it
-reported 1.13 out of pure timing noise).
+at 0.03 s of work the same design reported 1.13 out of pure timing
+noise).
 
 `measure_train_sharding_efficiency` below applies the same weak-scaling
 design to the jitted DP train step (shape-identical per-device
@@ -163,8 +163,8 @@ def measure_sharding_efficiency(
 
     # repeat spread: the efficiency band over all (t_1, t_n) repeat
     # pairings — a regression is only meaningful if it exceeds this
-    # noise band (round-4 VERDICT weak #6: efficiencies read >1.0 with
-    # no quantified margin, hiding real 5-8% placement regressions)
+    # noise band (efficiencies read >1.0 with no quantified margin
+    # would hide real 5-8% placement regressions)
     effs = [
         n_devices * a / b for a in times_1 for b in times_n
     ]

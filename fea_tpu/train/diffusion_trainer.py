@@ -4,10 +4,12 @@ A lean counterpart of the regression Trainer for GaussianDiffusion: the
 FDN-UNet denoiser is conditioned on [forces, constraints, materials]
 (5 channels) and learns the displacement image distribution; EMA params
 track the online params and drive sampling. Shares the DP mesh, dataset,
-and orbax checkpoint conventions of train.trainer.
+and checkpoint format (train/checkpoint.py) of train.trainer.
 """
 
+import dataclasses
 import logging
+import shutil
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Any, Dict, Optional
@@ -16,20 +18,24 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import struct
 
 from ..data.dataset import EpochSampler, FEADataset, collate
 from ..models.diffusion import GaussianDiffusion, make_diffusion_model
 from ..parallel.mesh import make_mesh, replicate, shard_batch
+from . import checkpoint
 from .ema import ema_update
 
 
-class DiffusionState(struct.PyTreeNode):
+@jax.tree_util.register_dataclass
+@dataclass(frozen=True)
+class DiffusionState:
     params: Any
     opt_state: Any
     ema_params: Any
     rng: jnp.ndarray
     step: jnp.ndarray
+
+    replace = dataclasses.replace
 
 
 @dataclass
@@ -162,21 +168,14 @@ class DiffusionTrainer:
         )
 
     def save_checkpoint(self, milestone):
-        import orbax.checkpoint as ocp
-
-        path = (self.results_folder / f"model-{milestone}").absolute()
-        import shutil
-
+        path = self.results_folder / f"model-{milestone}"
         if path.exists():
             shutil.rmtree(path)
-        with ocp.PyTreeCheckpointer() as ckptr:
-            ckptr.save(path, jax.device_get(self.state))
+        checkpoint.save(path, self.state)
 
     def load_checkpoint(self, milestone):
-        import orbax.checkpoint as ocp
-
-        path = (self.results_folder / f"model-{milestone}").absolute()
-        template = jax.device_get(self.state)
-        with ocp.PyTreeCheckpointer() as ckptr:
-            restored = ckptr.restore(path, item=template)
+        path = self.results_folder / f"model-{milestone}"
+        restored = checkpoint.restore(
+            jax.device_get(self.state), checkpoint.load_flat(path)
+        )
         self.state = replicate(self.mesh, restored)

@@ -1,51 +1,42 @@
-"""Device-placement policy helpers.
-
-Rasterization work is tiny (a few MFLOP per image once the per-plate
-pixel map exists) while the accelerator link may be a high-latency
-tunnel; by default those kernels run on the host CPU backend so the
-datagen loop only talks to the accelerator for FEM solves. Set
-FEA_TPU_RASTER_DEVICE=accel to keep rasterization on the accelerator
-(the right choice on directly-attached TPU hosts feeding a fused
-device-resident pipeline)."""
+"""Device-placement policy and the persistent compile cache."""
 
 import os
+from pathlib import Path
 from typing import Optional
 
 import jax
 
-_cache_enabled = False
+_CHECKOUT = Path(__file__).resolve().parents[2]
 
 
-def enable_compilation_cache() -> None:
-    """Persistent XLA compile cache (idempotent). Bucketed shapes mean a
-    handful of kernels total; caching makes restarts and repeated runs
-    cheap and sidesteps most remote-compile flakiness."""
-    global _cache_enabled
-    if _cache_enabled:
-        return
-    try:
-        cache_dir = os.environ.get(
-            "FEA_TPU_JAX_CACHE", os.path.expanduser("~/.cache/fea_tpu_jax")
-        )
-        os.makedirs(cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache_dir)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-        _cache_enabled = True
-    except Exception:
-        pass
+def compilation_cache_dir() -> str:
+    """`JAX_COMPILATION_CACHE_DIR` when set, else `<checkout>/.jax_cache`.
+    The path is fixed: it is part of the cache's key, so a directory
+    that moved between runs would never hit."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or str(
+        _CHECKOUT / ".jax_cache"
+    )
+
+
+def enable_compilation_cache() -> str:
+    """Point JAX's persistent compile cache at `compilation_cache_dir()`
+    and return it. Bucketed shapes mean a handful of kernels in all, so
+    a warm cache makes restarts and repeated runs cheap. Failures raise."""
+    cache_dir = compilation_cache_dir()
+    os.makedirs(cache_dir, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", cache_dir)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    return cache_dir
 
 
 def raster_device() -> Optional[jax.Device]:
-    """Device for raster/locate kernels; None = let JAX place them."""
-    policy = os.environ.get("FEA_TPU_RASTER_DEVICE", "cpu")
-    if policy == "accel":
+    """Device for raster/locate kernels; None = JAX's default device (the
+    accelerator). `FEA_TPU_RASTER_DEVICE=cpu` runs them on the host CPU
+    backend instead, for A/B measurements."""
+    if os.environ.get("FEA_TPU_RASTER_DEVICE", "accel") != "cpu":
         return None
-    try:
-        # local_devices, not devices: under a multi-process runtime
-        # jax.devices() is the GLOBAL list and [0] can be another
-        # process's (non-addressable) device — placing the raster kernel
-        # there makes the result unfetchable (found by the real
-        # 2-process run, benchmarks/multiprocess_smoke.py).
-        return jax.local_devices(backend="cpu")[0]
-    except RuntimeError:
-        return None
+    # local_devices, not devices: under a multi-process runtime
+    # jax.devices() is the GLOBAL list and [0] can be another process's
+    # (non-addressable) device — placing the raster kernel there makes
+    # the result unfetchable.
+    return jax.local_devices(backend="cpu")[0]

@@ -54,7 +54,7 @@ def _count(tree):
 
 @pytest.mark.skipif(not os.path.isdir(REFERENCE), reason="reference not mounted")
 def test_param_count_parity_with_reference():
-    """Topology check: our flax modules have exactly the reference torch
+    """Topology check: our modules have exactly the reference torch
     modules' parameter counts (same dims/connectivity, NHWC vs NCHW)."""
     sys.path.insert(0, REFERENCE)
     try:
@@ -171,85 +171,135 @@ def test_diffusion_mode_loss_and_sampling():
     assert np.isfinite(np.asarray(samples)).all()
 
 
-def test_flash_attention_matches_einsum():
-    """Pallas flash attention (interpret mode on CPU) matches the plain
-    softmax einsum path, including non-tile-multiple KV lengths (memory
-    KV slots)."""
-    from fea_tpu.ops import flash_attention
-
-    rng = np.random.default_rng(0)
-    bh, nq, nk, d = 3, 100, 68, 32
-    q = jnp.asarray(rng.normal(size=(bh, nq, d)), jnp.float32)
-    k = jnp.asarray(rng.normal(size=(bh, nk, d)), jnp.float32)
-    v = jnp.asarray(rng.normal(size=(bh, nk, d)), jnp.float32)
-
-    out = flash_attention(q, k, v, block_q=32, block_k=32, interpret=True)
-
-    scores = jnp.einsum("bnd,bmd->bnm", q, k) * (d**-0.5)
-    ref = jnp.einsum("bnm,bmd->bnd", jax.nn.softmax(scores, axis=-1), v)
-    np.testing.assert_allclose(
-        np.asarray(out), np.asarray(ref), atol=2e-5, rtol=2e-5
-    )
-
-
-def test_fused_group_norm_silu_matches_flax():
-    """Pallas fused GroupNorm+affine+SiLU (fea_tpu/ops/fused_norm.py,
-    interpret mode on CPU) matches flax nn.GroupNorm -> affine -> silu
-    in forward AND the full VJP (dx, dgamma, dbeta)."""
-    import flax.linen as nn
-
-    from fea_tpu.ops.fused_norm import group_norm_silu
-
-    B, H, W, C, G = 2, 32, 32, 64, 8
-    rng = np.random.default_rng(0)
-    x = jnp.asarray(rng.normal(size=(B, H, W, C)), jnp.float32)
-    gamma = jnp.asarray(rng.normal(size=(C,)), jnp.float32)
-    beta = jnp.asarray(rng.normal(size=(C,)), jnp.float32)
-    ct = jnp.asarray(rng.normal(size=(B, H, W, C)), jnp.float32)
-
-    gn = nn.GroupNorm(num_groups=G, use_bias=False, use_scale=False)
-    gn_vars = gn.init(jax.random.PRNGKey(0), x)
-
-    def ref(x, gamma, beta):
-        return nn.silu(gn.apply(gn_vars, x) * gamma + beta)
-
-    y_ref = ref(x, gamma, beta)
-    y = group_norm_silu(x, gamma, beta, G)
-    np.testing.assert_allclose(
-        np.asarray(y), np.asarray(y_ref), atol=5e-5, rtol=1e-4
-    )
-
-    g_ref = jax.grad(
-        lambda *a: jnp.sum(ref(*a) * ct), argnums=(0, 1, 2)
-    )(x, gamma, beta)
-    g = jax.grad(
-        lambda *a: jnp.sum(group_norm_silu(*a, G) * ct), argnums=(0, 1, 2)
-    )(x, gamma, beta)
-    for got, want in zip(g, g_ref):
-        scale = max(float(jnp.abs(want).max()), 1e-6)
-        assert float(jnp.abs(got - want).max()) / scale < 1e-4
-
-
 def test_fdnunet_flash_attention_variant():
+    """The attention variant's full-attention block (RMSNorm -> 1x1 qkv ->
+    memory KV -> softmax attention -> 1x1 out) against a float64 NumPy
+    implementation with the same parameters."""
+    from fea_tpu.models.attention import full_attention
+    from fea_tpu.models.layers import Scope
+
     S = 32
-    outs = []
-    for flash in (False, True):
-        model = FDNUNet(
-            input_dim=16,
-            num_stages=2,
-            num_channels=2,
-            num_auxiliary_condition_channels=3,
-            attention_head_dim=8,
-            num_attention_heads=2,
-            use_flash_attention=flash,
+    model = FDNUNet(
+        input_dim=16,
+        num_stages=2,
+        num_channels=2,
+        num_auxiliary_condition_channels=3,
+        attention_head_dim=8,
+        num_attention_heads=2,
+    )
+    x = jax.random.normal(jax.random.PRNGKey(1), (1, S, S, 2), jnp.float32)
+    cond = jax.random.normal(jax.random.PRNGKey(2), (1, S, S, 3), jnp.float32)
+    variables = model.init(jax.random.PRNGKey(0), x, cond)
+    out = model.apply(variables, x, cond)
+    assert out.shape == (1, S, S, 2) and np.isfinite(np.asarray(out)).all()
+
+    p = variables["params"]["middle_attention"]
+    heads, hd = 2, 8
+    h = jax.random.normal(jax.random.PRNGKey(3), (2, 8, 8, 32), jnp.float32)
+    with jax.default_matmul_precision("highest"):
+        got = full_attention(
+            Scope({"middle_attention": p}), h, heads, hd, name="middle_attention"
         )
-        rng = jax.random.PRNGKey(0)
-        x = jax.random.normal(jax.random.PRNGKey(1), (1, S, S, 2))
-        cond = jax.random.normal(jax.random.PRNGKey(2), (1, S, S, 3))
-        variables = model.init(rng, x, cond)
-        outs.append(np.asarray(model.apply(variables, x, cond)))
-    # same params (same init RNG), flash vs math attention agree
-    np.testing.assert_allclose(outs[0], outs[1], atol=5e-4)
+
+    f = lambda a: np.asarray(a, np.float64)
+    hn = f(h)
+    b, H, W, c = hn.shape
+    xn = hn * np.sqrt(c) / np.maximum(
+        np.linalg.norm(hn, axis=-1, keepdims=True), 1e-12
+    ) * f(p["RMSNorm_0"]["g"])
+    qkv = xn @ f(p["Conv_0"]["kernel"])[0, 0]
+    q, k, v = np.split(qkv.reshape(b, H * W, 3 * heads * hd), 3, axis=-1)
+    q, k, v = (t.reshape(b, H * W, heads, hd).transpose(0, 2, 1, 3) for t in (q, k, v))
+    mem = f(p["memory_kv"])
+    k = np.concatenate([np.broadcast_to(mem[0], (b,) + mem[0].shape), k], axis=2)
+    v = np.concatenate([np.broadcast_to(mem[1], (b,) + mem[1].shape), v], axis=2)
+    s = q @ k.transpose(0, 1, 3, 2) / np.sqrt(hd)
+    w = np.exp(s - s.max(-1, keepdims=True))
+    w /= w.sum(-1, keepdims=True)
+    o = (w @ v).transpose(0, 2, 1, 3).reshape(b, H, W, heads * hd)
+    want = o @ f(p["Conv_1"]["kernel"])[0, 0] + f(p["Conv_1"]["bias"])
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-4, atol=1e-5)
+
+
+def test_flagship_parameter_counts():
+    """The flagship trio (input_dim 64, 4 stages, 256 px) keeps the
+    reference's parameter counts."""
+    S = 256
+    enc, dec, aux = create_models(
+        input_dim=64, image_height=S, image_width=S, num_channels=2,
+        num_auxiliary_condition_channels=3, num_stages=4,
+    )
+    key = jax.random.PRNGKey(0)
+    m = jax.ShapeDtypeStruct((1, S, S, 2), jnp.float32)
+    c = jax.ShapeDtypeStruct((1, S, S, 3), jnp.float32)
+    ev = jax.eval_shape(enc.init, key, m, c)
+    x, hidden, residual = jax.eval_shape(enc.apply, ev, m, c)
+    dv = jax.eval_shape(dec.init, key, x, list(hidden), residual)
+    av = jax.eval_shape(aux.init, key, x)
+    counts = [
+        sum(int(np.prod(l.shape)) for l in jax.tree.leaves(v))
+        for v in (ev, dv, av)
+    ]
+    assert counts == [41_093_440, 18_471_106, 134_417_416]
+
+
+def _golden_params(paths_shapes, seed=0):
+    """Deterministic parameters for the small-trio golden: the same
+    procedure, over the same sorted key paths, produced the golden's
+    outputs from the flax implementation this package replaced."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for path, shape in sorted(paths_shapes):
+        name = path.rsplit("/", 1)[-1]
+        n = rng.standard_normal(shape).astype(np.float32)
+        if name in ("scale", "g"):
+            v = 1.0 + 0.1 * n
+        elif name == "bias":
+            v = 0.1 * n
+        elif name == "memory_kv":
+            v = n
+        else:
+            v = n / np.sqrt(np.prod(shape[:-1]))
+        out[path] = v.astype(np.float32)
+    return out
+
+
+def test_small_trio_matches_golden():
+    """The trio at input_dim 8, 32 px reproduces the outputs recorded in
+    tests/goldens/fdnunet_small_golden.npz (float32, highest precision)."""
+    from fea_tpu.train.checkpoint import flatten, unflatten
+
+    g = np.load(os.path.join(os.path.dirname(__file__), "goldens",
+                             "fdnunet_small_golden.npz"))
+    S = 32
+    enc, dec, aux = create_models(
+        input_dim=8, image_height=S, image_width=S, num_channels=2,
+        num_auxiliary_condition_channels=3, num_stages=4,
+    )
+    m = jnp.asarray(g["materials"])
+    c = jnp.asarray(g["conditions"])
+    key = jax.random.PRNGKey(0)
+    with jax.default_matmul_precision("highest"):
+        ev = enc.init(key, m, c)
+        x, hidden, residual = enc.apply(ev, m, c)
+        tree = {
+            "encoder": ev["params"],
+            "decoder": dec.init(key, x, list(hidden), residual)["params"],
+            "auxiliary": aux.init(key, x)["params"],
+        }
+        flat = flatten(tree)
+        assert sorted(flat) == list(g["param_paths"])
+        params = unflatten(
+            _golden_params([(k, v.shape) for k, v in flat.items()])
+        )
+        x, hidden, residual = enc.apply({"params": params["encoder"]}, m, c)
+        image = dec.apply({"params": params["decoder"]}, x, list(hidden), residual)
+        sign, log = aux.apply({"params": params["auxiliary"]}, x)
+    for got, name in ((x, "middle"), (image, "image"), (sign, "sign"), (log, "log")):
+        assert got.dtype == jnp.float32
+        np.testing.assert_allclose(
+            np.asarray(got), g[name], rtol=1e-5, atol=1e-6, err_msg=name
+        )
 
 
 def test_amax_normalize_zero_divisor_guard():

@@ -1,6 +1,7 @@
 import numpy as np
+
+from fea_tpu.utils import png
 import pytest
-from PIL import Image
 
 from fea_tpu.mesh import read_medit_mesh, read_vtk, triangulate
 from fea_tpu.raster import (
@@ -76,7 +77,7 @@ def test_app_raster_parity_with_vtk_render(app, axis):
     """Pixel-level parity vs the reference's VTK-rendered
     displacement_{x,y}.png (clim ±0.05, the app/metrics decode scale),
     gated for EVERY app fixture that ships a rendered PNG + solved VTK:
-    cantilever and shearblade (round-3 VERDICT weak #4). gusset ships
+    cantilever and shearblade. gusset ships
     only mesh/geo/py (no VTK, no rendered PNGs) and composite's solve is
     singular garbage in the reference itself (CLAUDE.md), so those two
     have no raster fixture to gate against — gusset's FEM solve is
@@ -86,7 +87,7 @@ def test_app_raster_parity_with_vtk_render(app, axis):
     coords, tris = read_medit_mesh(f"{d}/{app}.mesh")
     u = read_vtk(f"{d}/{app}.vtk")["u"][:, :2]
     name = "displacement_x.png" if axis == 0 else "displacement_y.png"
-    ref = np.array(Image.open(f"{d}/{name}").convert("L")).astype(float)
+    ref = png.to_gray(png.read_png(f"{d}/{name}")).astype(float)
     S = ref.shape[0]
     pm = build_pixel_map(coords, tris, S)
     mine = field_image(
