@@ -2,7 +2,6 @@
 
     python chip_smoke.py [--out DIR]     # phases 0-6 on one card
     python chip_smoke.py --chips 4       # DP train step + sharded datagen, 4 cards
-    python chip_smoke.py --rehearse      # the same phases at tiny sizes on the CPU
 
 Phases on one card, each through the entry point a user calls
 (`fea_tpu.cli.main`), at the flagship's full width:
@@ -24,8 +23,6 @@ Any failed phase or check exits non-zero without the result line. The
 last line of stdout is the result:
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}
 Only one process may use a card: JAX reserves most of its memory.
-`--rehearse` runs every phase at tiny sizes on whatever JAX offers
-(JAX_PLATFORMS=cpu) to check control flow; it prints no result line.
 """
 
 import argparse
@@ -76,13 +73,6 @@ class Sizes:
     attention_batch: int = 16
 
 
-FULL = Sizes()
-TINY = Sizes(
-    plates=2, image=64, mesh=0.08, conditions=2, steps=3, ref_conditions=4,
-    train_image=32, input_dim=8, train_steps=2, timed_steps=2,
-    parity_batch=2, attention_tokens=(16, 64), attention_batch=2,
-)
-
 # Counted by jax.eval_shape from the trio in fea_tpu/models at input_dim
 # 64, 4 stages, 256 px (tests/test_models.py pins the same numbers).
 FLAGSHIP_PARAMS = {"encoder": 41_093_440, "decoder": 18_471_106,
@@ -101,7 +91,7 @@ def card_line():
     return out.stdout.strip()
 
 
-def phase_device(rehearse):
+def phase_device():
     import jax
 
     from fea_tpu.mesh.mesher import native_mesher_loaded
@@ -109,13 +99,11 @@ def phase_device(rehearse):
 
     devices = jax.devices()
     d = devices[0]
-    if not rehearse:
-        check(d.platform == "gpu", f"no GPU: JAX found {d.platform}")
+    check(d.platform == "gpu", f"no GPU: JAX found {d.platform}")
     cache = enable_compilation_cache()
     say(0, f"platform={d.platform} kind={d.device_kind} count={len(devices)} "
            f"jax={jax.__version__} compile_cache={cache}")
-    if not rehearse:
-        say(0, f"card: {card_line()}")
+    say(0, f"card: {card_line()}")
     check(native_mesher_loaded(), "native CDT mesher did not load")
     say(0, "native CDT mesher loaded")
     return d
@@ -355,9 +343,8 @@ def phase_train(out, data_dir, sz, clock):
         trainer = cli.main(train_args(data_dir, results, sz, dtype))
         wall = time.perf_counter() - t0
         compile_s = clock.total - c0
-        if sz is FULL:
-            check(trainer.num_params() == FLAGSHIP_PARAMS,
-                  f"parameter counts {trainer.num_params()}")
+        check(trainer.num_params() == FLAGSHIP_PARAMS,
+              f"parameter counts {trainer.num_params()}")
         logs = sorted(results.glob("train-*.log"))
         losses = parse_train_log(str(logs[-1]))["losses"]
         check(len(losses) == sz.train_steps and np.isfinite(losses).all(),
@@ -427,7 +414,10 @@ def time_attention(sz):
                 ))
                 try:
                     jax.block_until_ready(step(q, k, v))
-                except Exception as e:  # cuDNN refuses some shapes/dtypes
+                except Exception as e:
+                    if (name, dtype) != ("cudnn", "float32"):
+                        raise
+                    # cuDNN's flash attention takes half precision only
                     rows.append((n, m, dtype, name, None, str(e).split("\n")[0][:120]))
                     continue
                 times = []
@@ -484,12 +474,12 @@ def phase_parity(out, data_dir, ckpt, sz):
             *args, jnp.float32),
         "bfloat16": jax.jit(forward, static_argnums=3)(*args, jnp.bfloat16),
     }
-    # Bounds on the relative L2 error of every head. Float32 convolutions
-    # at default precision may run as TF32 on this card (10-bit mantissa,
-    # ~5e-4 per product), accumulated over ~50 layers between
-    # normalizations: 2e-2. bfloat16 (8-bit mantissa, ~4e-3 per product)
-    # over the same depth: 1e-1.
-    bounds = {"float32 default precision": 2e-2, "bfloat16": 1e-1}
+    # Bounds on the relative L2 error of every head, set from H100 readings.
+    # Float32 convolutions at default precision may run as TF32 on this card:
+    # they read at most 8.3e-4, and a forward in bf16 at least 2.6e-3, so
+    # 1.5e-3 passes TF32 and refuses a forward that quietly ran in bf16.
+    # bfloat16 reads at most 1.1e-2; 1e-1 refuses a broken forward (O(1)).
+    bounds = {"float32 default precision": 1.5e-3, "bfloat16": 1e-1}
     for name, got in runs.items():
         for head, a, b in zip(("image", "sign", "log"), got, ref):
             a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
@@ -592,8 +582,37 @@ def dp_step(n_devices, sz, out):
     check(shards == n_devices, f"batch on {shards} devices, want {n_devices}")
     with jax.default_matmul_precision("highest"):
         state, loss = trainer._train_step(trainer.state, batch)
-    params = jax.device_get(state.params)
-    return float(loss), params, cfg.train_learning_rate
+    return float(loss), first_moments(state)
+
+
+def first_moments(state):
+    """Adam's first moment after one step, (1 - b1) * clipped gradient: linear
+    in the all-reduced gradient, unlike the step itself. By key path."""
+    import jax
+
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        jax.device_get(state.opt_states))
+    return {
+        jax.tree_util.keystr(path): np.asarray(leaf, np.float64)
+        for path, leaf in flat
+        if any(getattr(k, "name", None) == "mu" for k in path)
+    }
+
+
+def moment_difference(m1, mn):
+    """(global relative L2, worst leaf relative L2, its path, leaves
+    compared). Leaves whose one-card norm is under 1e-6 of the largest
+    leaf's hold only rounding (e.g. biases that a normalization cancels)
+    and are skipped in the per-leaf worst."""
+    check(m1.keys() == mn.keys(), "optimizer trees differ between meshes")
+    norms = {k: np.linalg.norm(v) for k, v in m1.items()}
+    diffs = {k: np.linalg.norm(mn[k] - m1[k]) for k in m1}
+    total = np.sqrt(sum(d * d for d in diffs.values()))
+    total /= np.sqrt(sum(n * n for n in norms.values()))
+    floor = 1e-6 * max(norms.values())
+    rel = {k: diffs[k] / norms[k] for k in m1 if norms[k] > floor}
+    worst = max(rel, key=rel.get)
+    return float(total), float(rel[worst]), worst, len(rel)
 
 
 def sharded_datagen(n_devices, sz, out):
@@ -614,24 +633,31 @@ def sharded_datagen(n_devices, sz, out):
     return stats, [np.asarray(r.displacements[-1]) for _, _, r in kept]
 
 
+# The same f32 program at precision "highest" on both meshes; only the
+# order of the loss and gradient reductions differs. A gradient that missed
+# the all-reduce, or came from one card's rows, moves Adam's first moment
+# by O(1). Worst-leaf readings: 5.0e-5 between 1 and 4 H100s; 6.7 for a
+# gradient from one device's rows (4 CPU devices, input_dim 8).
+DP_LOSS_BOUND = 1e-5
+DP_MOMENT_BOUND = 1e-3
+
+
 def phase_four_cards(out, sz, n):
     import jax
 
     check(len(jax.devices()) >= n, f"need {n} devices, have {len(jax.devices())}")
-    l1, p1, lr = dp_step(1, sz, out)
-    ln, pn, _ = dp_step(n, sz, out)
+    l1, m1 = dp_step(1, sz, out)
+    ln, mn = dp_step(n, sz, out)
     dl = abs(ln - l1) / abs(l1)
-    dp = max(float(np.abs(a - b).max())
-             for a, b in zip(jax.tree.leaves(p1), jax.tree.leaves(pn)))
-    # Loss: the same f32 program at precision "highest" on both meshes;
-    # only the order of the gradient/loss reductions differs: 1e-5.
-    # Params: Adam's first step moves each weight by at most lr (update =
-    # lr * g / (|g| + eps)), so a gradient that rounds to the other sign
-    # moves it by at most 2 lr.
+    total, worst, where, leaves = moment_difference(m1, mn)
     say("4-card", f"DP train step global batch {sz.batch}: loss 1 card "
                   f"{l1:.6f}, {n} cards {ln:.6f} (rel diff {dl:.2e}, bound "
-                  f"1e-5); max |param diff| {dp:.3e} (bound 2*lr={2 * lr:.1e})")
-    check(dl <= 1e-5 and dp <= 2 * lr, "DP step differs between meshes")
+                  f"{DP_LOSS_BOUND})")
+    say("4-card", f"Adam first moment (clipped gradient), {leaves} leaves: "
+                  f"rel-L2 all leaves {total:.3e}, worst leaf {worst:.3e} at "
+                  f"{where} (bound {DP_MOMENT_BOUND})")
+    check(dl <= DP_LOSS_BOUND and worst <= DP_MOMENT_BOUND,
+          "DP step differs between meshes")
 
     s1, u1 = sharded_datagen(1, sz, out)
     sn, un = sharded_datagen(n, sz, out)
@@ -661,10 +687,8 @@ def main(argv=None):
                          "images (default: a temporary directory, removed "
                          "at the end)")
     ap.add_argument("--chips", type=int, default=1, choices=(1, 4))
-    ap.add_argument("--rehearse", action="store_true",
-                    help="tiny sizes on any backend; prints no result line")
     args = ap.parse_args(argv)
-    sz = TINY if args.rehearse else FULL
+    sz = Sizes()
     out = Path(args.out) if args.out else Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     out.mkdir(parents=True, exist_ok=True)
     for stale in ("data", "results_float32", "results_bfloat16",
@@ -674,7 +698,7 @@ def main(argv=None):
     start = time.perf_counter()
     phase = 0
     try:
-        device = phase_device(args.rehearse)
+        device = phase_device()
         import jax
 
         if args.chips > 1:
@@ -693,9 +717,8 @@ def main(argv=None):
             phase_parity(out, data_dir, ckpt, sz)
             phase = 5
             phase_serve(out, ckpt)
-            if not args.rehearse:
-                phase = 6
-                phase_card_tests()
+            phase = 6
+            phase_card_tests()
         say("done", f"all phases passed in {time.perf_counter() - start:.1f} s")
     except Exception as e:  # report the phase, then fail
         import traceback
@@ -706,9 +729,6 @@ def main(argv=None):
     finally:
         if args.out is None:
             shutil.rmtree(out, ignore_errors=True)
-    if args.rehearse:
-        print("rehearsal passed (no result line: not a chip run)")
-        return 0
     count = len(jax.devices())
     check(count == args.chips, f"{count} devices visible, ran for {args.chips}")
     print(json.dumps({"ok": True, "device": {

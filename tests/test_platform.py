@@ -88,3 +88,31 @@ def test_fem_device_products_pin_precision():
         os.path.join(ROOT, "fea_tpu", "fem", "solver.py")
     )
     assert device == pinned > 0
+
+
+def test_chip_smoke_dp_step_comparison(tmp_path, monkeypatch):
+    """The 4-card check of chip_smoke.py at a tiny width on virtual CPU
+    devices: one step on a 4-device ('dp',) mesh matches one device within
+    the script's bounds, and a gradient taken from one device's rows only
+    is refused."""
+    sys.path.insert(0, ROOT)
+    try:
+        import chip_smoke as cs
+    finally:
+        sys.path.pop(0)
+    sz = cs.Sizes(train_image=32, input_dim=8)
+    l1, m1 = cs.dp_step(1, sz, tmp_path)
+    l4, m4 = cs.dp_step(4, sz, tmp_path)
+    assert abs(l4 - l1) / abs(l1) <= cs.DP_LOSS_BOUND
+    total, worst, _, leaves = cs.moment_difference(m1, m4)
+    assert worst <= cs.DP_MOMENT_BOUND and leaves > 0.9 * len(m1)
+
+    rows = cs.RandomDataset
+
+    class OneDeviceRows(rows):
+        def __getitem__(self, i):
+            return rows.__getitem__(self, i % (sz.batch // 4))
+
+    monkeypatch.setattr(cs, "RandomDataset", OneDeviceRows)
+    _, mq = cs.dp_step(1, sz, tmp_path / "rows")
+    assert cs.moment_difference(m1, mq)[1] > 100 * cs.DP_MOMENT_BOUND
